@@ -9,17 +9,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.math import Vec3
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.io.image import save_png
-from optixpathtracer_tpu.io.obj import load_obj
-from optixpathtracer_tpu.lights.lights import QuadLight
-from optixpathtracer_tpu.lights.probe import build_probe
-from optixpathtracer_tpu.ops import tonemap as tm
-from optixpathtracer_tpu.utils.cache import enable_compilation_cache
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.math import Vec3
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.io.image import save_png
+from optixpathtracer.io.obj import load_obj
+from optixpathtracer.lights.lights import QuadLight
+from optixpathtracer.lights.probe import build_probe
+from optixpathtracer.ops import tonemap as tm
+from optixpathtracer.utils.cache import enable_compilation_cache
 
 import jax.numpy as jnp
 
@@ -36,7 +36,7 @@ def main():
         corner=(-0.3, 1.985, -0.3), v1=(0.6, 0, 0), v2=(0, 0, 0.6),
         emission=(15.0, 15.0, 15.0),
     )
-    from optixpathtracer_tpu.utils.platform import auto_tune
+    from optixpathtracer.utils.platform import auto_tune
 
     cfg = auto_tune(
         RenderConfig(width=256, height=256, samples_per_launch=8,

@@ -9,15 +9,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.foveated import FoveatedRenderer, FoveationConfig
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.io.image import save_png
-from optixpathtracer_tpu.lights.probe import build_probe
-from optixpathtracer_tpu.utils.cache import enable_compilation_cache
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.foveated import FoveatedRenderer, FoveationConfig
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.io.image import save_png
+from optixpathtracer.lights.probe import build_probe
+from optixpathtracer.utils.cache import enable_compilation_cache
 
 
 def main():
@@ -35,7 +35,7 @@ def main():
         hs.add_box(make_material(color=c, roughness=0.5), pos=p, extent=(0.4, 0.5, 0.4))
     cs = compile_scene(hs)
 
-    from optixpathtracer_tpu.utils.platform import auto_tune
+    from optixpathtracer.utils.platform import auto_tune
 
     w, h = 480, 360
     cfg = auto_tune(RenderConfig(width=w, height=h, max_depth=3))

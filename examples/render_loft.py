@@ -14,14 +14,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.io.image import save_png
-from optixpathtracer_tpu.io.obj import load_obj
-from optixpathtracer_tpu.lights.probe import build_probe
-from optixpathtracer_tpu.utils.platform import auto_tune
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.io.image import save_png
+from optixpathtracer.io.obj import load_obj
+from optixpathtracer.lights.probe import build_probe
+from optixpathtracer.utils.platform import auto_tune
 
 
 def main():

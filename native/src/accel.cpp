@@ -1,28 +1,19 @@
 // Native acceleration-structure compiler — the C++ runtime path for scene
 // builds (the reference delegates this to optixAccelBuild + hardware,
 // HelloPathtracing_original/SimplePathtracer.cpp:457-601; sutil/Scene.cpp:
-// 776-1150). The Python/numpy builders (bvh/lbvh.py, bvh/wide.py,
-// bvh/clusters.py) stay as the reference semantics and the fallback; this
-// library replaces their host compute 1:1:
+// 776-1150). The Python/numpy builders (bvh/lbvh.py, bvh/wide.py) stay as
+// the reference semantics and the fallback; this library replaces their
+// host compute 1:1:
 //
 //   accel_build_binary   = bvh/lbvh.build_bvh host stage (morton codes ->
 //                          stable sort -> Karras 2012 emit -> BFS levels ->
 //                          exact f32 refit), BIT-EXACT vs the numpy code.
 //   accel_wide_collapse  = bvh/wide.collapse (greedy largest-count slot
 //                          expansion), BIT-EXACT including slot order.
-//   accel_treelet_order  = bvh/clusters.treelet_order (recursive aligned
-//                          median partition). Contract-equivalent, not
-//                          bit-equal: numpy argpartition's intra-partition
-//                          order is unspecified, so only the cluster
-//                          tightness contract is shared.
-//   accel_cluster_tables = bvh/clusters._cluster_tables (f64 bounds ->
-//                          f32 spheres/rows in supercluster layout),
-//                          BIT-EXACT vs the numpy code.
 //
 // Build: g++ -O2 -shared -fPIC -o libaccel.so accel.cpp
 #include <algorithm>
 #include <limits>
-#include <cfenv>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -30,8 +21,6 @@
 
 namespace {
 
-constexpr int kSuper = 8;        // clusters per supercluster (clusters.SUPER)
-constexpr int kStoreRows = 16;   // padded row count (clusters.STORE_ROWS)
 
 inline uint32_t spread10(uint32_t v) {
     v = (v * 0x00010001u) & 0xFF0000FFu;
@@ -363,187 +352,6 @@ int32_t accel_wide_collapse(const int32_t* left, const int32_t* right,
     }
     *wn_out = static_cast<int64_t>(queue.size());
     return max_depth + 1;
-}
-
-// ---------------------------------------------------------------------------
-// Treelet repacking order (bvh/clusters.treelet_order): recursive
-// longest-axis median partition with cluster-aligned splits. ctr is (n, 3)
-// float64 centroids; writes the permutation to out. Returns 0, or -1.
-int32_t accel_treelet_order(const double* ctr, int64_t n, int64_t c,
-                            int64_t group, int64_t* out) {
-    if (n < 1 || c < 1 || group < 1) return -1;
-    for (int64_t i = 0; i < n; ++i) out[i] = i;
-    const int64_t big = c * group;
-    std::vector<std::pair<int64_t, int64_t>> stack{{0, n}};
-    const int save_round = std::fegetround();
-    std::fesetround(FE_TONEAREST);  // Python round() == banker's rounding
-    while (!stack.empty()) {
-        const auto [b, e] = stack.back();
-        stack.pop_back();
-        const int64_t k = e - b;
-        if (k <= c) continue;  // emitted in place
-        double blo[3] = {1e300, 1e300, 1e300}, bhi[3] = {-1e300, -1e300, -1e300};
-        for (int64_t i = b; i < e; ++i)
-            for (int a = 0; a < 3; ++a) {
-                const double v = ctr[3 * out[i] + a];
-                blo[a] = std::min(blo[a], v);
-                bhi[a] = std::max(bhi[a], v);
-            }
-        int ax = 0;
-        double best = bhi[0] - blo[0];
-        for (int a = 1; a < 3; ++a)
-            if (bhi[a] - blo[a] > best) {
-                best = bhi[a] - blo[a];
-                ax = a;
-            }
-        const int64_t align = k > big ? big : c;
-        int64_t split = static_cast<int64_t>(std::nearbyint(
-                            (static_cast<double>(k) / 2.0) / align)) * align;
-        split = std::max(align, std::min(split, ((k - 1) / align) * align));
-        std::nth_element(out + b, out + b + split, out + e,
-                         [&](int64_t x, int64_t y) {
-                             return ctr[3 * x + ax] < ctr[3 * y + ax];
-                         });
-        stack.emplace_back(b + split, e);
-        stack.emplace_back(b, b + split);
-    }
-    std::fesetround(save_round);
-    return 0;
-}
-
-// ---------------------------------------------------------------------------
-// Cluster tables (bvh/clusters._cluster_tables): f64 bounds -> f32 sphere /
-// rows tables in supercluster-grouped layout. Inputs are the TREELET-ORDERED
-// f32 vertex arrays of length t_in; triangles at index >= num_real (or
-// >= t_in) are degenerate padding. Caller allocates (m_pad = s*kSuper
-// clusters, s = ceil(ceil(num_real/c)/kSuper) supers):
-//   rows          (s, 16, kSuper*c) f32
-//   spheres       (m_pad, 8) f32
-//   super_spheres (s, 8) f32
-//   scene_aabb    (8,) f32
-// Returns 0, or -1 on bad arguments.
-int32_t accel_cluster_tables(const float* v0, const float* v1, const float* v2,
-                             int64_t t_in, int64_t num_real, int64_t c,
-                             float* rows, float* spheres, float* super_spheres,
-                             float* scene_aabb) {
-    if (c < 1 || num_real < 0) return -1;
-    const int64_t t_real = num_real;
-    const int64_t m = std::max<int64_t>(1, (t_real + c - 1) / c);
-    const int64_t s = (m + kSuper - 1) / kSuper;
-    const int64_t m_pad = s * kSuper;
-
-    auto fetch = [&](const float* v, int64_t tri, int a) -> double {
-        // pad(v): rows [0, min(t_real, t_in)) copy through; beyond is zero
-        if (tri >= t_real || tri >= t_in) return 0.0;
-        return static_cast<double>(v[3 * tri + a]);
-    };
-
-    // zero the rows table once; only rows 0..8 of real columns get data
-    std::memset(rows, 0, sizeof(float) * s * kStoreRows * kSuper * c);
-
-    double sc_lo[3] = {1e300, 1e300, 1e300}, sc_hi[3] = {-1e300, -1e300, -1e300};
-    bool any_scene = false;
-
-    std::vector<double> su_lo(s * 3), su_hi(s * 3);
-    std::vector<uint8_t> su_any(s, 0);
-    for (int64_t i = 0; i < s * 3; ++i) {
-        su_lo[i] = 1e300;
-        su_hi[i] = -1e300;
-    }
-
-    for (int64_t cm = 0; cm < m_pad; ++cm) {
-        const int64_t sup = cm / kSuper, member = cm % kSuper;
-        double lo3[3] = {1e300, 1e300, 1e300}, hi3[3] = {-1e300, -1e300, -1e300};
-        bool any = false;
-        float* rbase = rows + (sup * kStoreRows) * (kSuper * c);
-        const int64_t col0 = member * c;
-        for (int64_t tr = 0; tr < c; ++tr) {
-            const int64_t tri = cm * c + tr;
-            const bool real = tri < t_real;
-            double a0[3], a1[3], a2[3];
-            for (int a = 0; a < 3; ++a) {
-                a0[a] = real ? fetch(v0, tri, a) : 0.0;
-                a1[a] = real ? fetch(v1, tri, a) : 0.0;
-                a2[a] = real ? fetch(v2, tri, a) : 0.0;
-            }
-            const int64_t col = col0 + tr;
-            const int64_t stride = kSuper * c;
-            for (int a = 0; a < 3; ++a) {
-                rbase[(0 + a) * stride + col] = static_cast<float>(a0[a]);
-                rbase[(3 + a) * stride + col] = static_cast<float>(a1[a] - a0[a]);
-                rbase[(6 + a) * stride + col] = static_cast<float>(a2[a] - a0[a]);
-            }
-            if (real) {
-                any = true;
-                for (int a = 0; a < 3; ++a) {
-                    const double mn = std::min(a0[a], std::min(a1[a], a2[a]));
-                    const double mx = std::max(a0[a], std::max(a1[a], a2[a]));
-                    lo3[a] = std::min(lo3[a], mn);
-                    hi3[a] = std::max(hi3[a], mx);
-                }
-            }
-        }
-        double ctr3[3], half3[3];
-        for (int a = 0; a < 3; ++a) {
-            const double lo_v = any ? lo3[a] : 0.0, hi_v = any ? hi3[a] : 0.0;
-            ctr3[a] = 0.5 * (lo_v + hi_v);
-            half3[a] = 0.5 * (hi_v - lo_v);
-        }
-        double rad = std::sqrt(half3[0] * half3[0] + half3[1] * half3[1] +
-                               half3[2] * half3[2]);
-        rad = any ? rad * (1.0 + 1e-5) + 1e-30 : 0.0;
-        float* sp = spheres + 8 * cm;
-        for (int a = 0; a < 3; ++a) sp[a] = static_cast<float>(ctr3[a]);
-        sp[3] = static_cast<float>(rad);
-        for (int a = 0; a < 3; ++a)
-            sp[4 + a] = static_cast<float>(half3[a] * (1.0 + 1e-5));
-        sp[7] = 0.0f;
-        if (any) {
-            su_any[sup] = 1;
-            for (int a = 0; a < 3; ++a) {
-                su_lo[3 * sup + a] = std::min(su_lo[3 * sup + a], lo3[a]);
-                su_hi[3 * sup + a] = std::max(su_hi[3 * sup + a], hi3[a]);
-                sc_lo[a] = std::min(sc_lo[a], lo3[a]);
-                sc_hi[a] = std::max(sc_hi[a], hi3[a]);
-            }
-            any_scene = true;
-        }
-    }
-
-    for (int64_t sup = 0; sup < s; ++sup) {
-        double ctr3[3], half3[3];
-        for (int a = 0; a < 3; ++a) {
-            const double lo_v = su_any[sup] ? su_lo[3 * sup + a] : 0.0;
-            const double hi_v = su_any[sup] ? su_hi[3 * sup + a] : 0.0;
-            ctr3[a] = 0.5 * (lo_v + hi_v);
-            half3[a] = 0.5 * (hi_v - lo_v);
-        }
-        double rad = std::sqrt(half3[0] * half3[0] + half3[1] * half3[1] +
-                               half3[2] * half3[2]);
-        rad = su_any[sup] ? rad * (1.0 + 1e-5) + 1e-30 : 0.0;
-        float* sp = super_spheres + 8 * sup;
-        for (int a = 0; a < 3; ++a) sp[a] = static_cast<float>(ctr3[a]);
-        sp[3] = static_cast<float>(rad);
-        for (int a = 0; a < 3; ++a)
-            sp[4 + a] = static_cast<float>(half3[a] * (1.0 + 1e-5));
-        sp[7] = 0.0f;
-    }
-
-    double slo[3], shi[3];
-    for (int a = 0; a < 3; ++a) {
-        slo[a] = any_scene ? sc_lo[a] : 0.0;
-        shi[a] = any_scene ? sc_hi[a] : 0.0;
-    }
-    double amax = 1.0;
-    for (int a = 0; a < 3; ++a)
-        amax = std::max(amax, std::max(std::abs(slo[a]), std::abs(shi[a])));
-    const double pad_abs = 1e-5 * amax;
-    for (int a = 0; a < 3; ++a) {
-        scene_aabb[a] = static_cast<float>(slo[a] - pad_abs);
-        scene_aabb[3 + a] = static_cast<float>(shi[a] + pad_abs);
-    }
-    scene_aabb[6] = scene_aabb[7] = 0.0f;
-    return 0;
 }
 
 }  // extern "C"

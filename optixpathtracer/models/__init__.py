@@ -1,0 +1,127 @@
+"""Model families: the reference's six copy-pasted app variants expressed as
+configuration presets over one engine (SURVEY.md §1: 'factor L3b into one
+parameterized engine and express the variants as configs').
+
+BASELINE.json config list -> preset:
+  1. 04HelloRaytracing        -> hello_raytracing (primary visibility + shadow)
+  2. cuda/whitted.cu spheres  -> whitted (recursive reflect/refract, point lights)
+  3. HelloPathtracing_original-> disney_pt (Disney BSDF PT + probe NEE + post)
+  4. HelloPathtracing_sv3     -> spectral (hero-wavelength + probe sampling)
+  5. HelloPathtracing_sv4     -> foveated (3-zone gaze-contingent PT)
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..builder import CompiledScene, compile_scene
+from ..core.camera import Camera
+from ..engine.foveated import FoveatedRenderer, FoveationConfig
+from ..engine.renderer import Renderer
+from ..engine.spectral import SpectralRenderer
+from ..engine.wavefront import RenderConfig
+from ..lights.probe import Probe
+from ..utils.platform import auto_tune
+from .hello_raytracing import HelloConfig, HelloRenderer
+from .whitted import WhittedRenderer, make_renderer as make_whitted_renderer
+
+__all__ = [
+    "make_hello_renderer",
+    "make_whitted_renderer",
+    "make_disney_pt_renderer",
+    "make_spectral_renderer",
+    "make_foveated_renderer",
+    "make_adaptive_renderer",
+    "PRESETS",
+]
+
+
+def make_hello_renderer(cs: CompiledScene, camera: Camera, width=1200, height=800):
+    """Config 1: flat-shaded primary visibility at 1200x800 (BASELINE.json)."""
+    return HelloRenderer(cs, HelloConfig(width=width, height=height), camera)
+
+
+def make_disney_pt_renderer(
+    cs: CompiledScene, probe: Probe, camera: Camera,
+    width=1200, height=1024, spp=32, max_depth=8, demand=None, **overrides,
+) -> Renderer:
+    """Config 3: the original pathtracer — spp 32 (main.cpp:134), depth 8
+    (deviceProgram.cu:429), 1200x1024 framebuffer (main.cpp:214).
+
+    demand: optional io.demand.DemandTextureManager — shade textures from
+    the sparse demand-loaded pool (pages stream in between launches)."""
+    cfg = RenderConfig(
+        width=width, height=height, samples_per_launch=spp, max_depth=max_depth,
+        **overrides,
+    )
+    if "traversal" not in overrides:  # platform-appropriate backend
+        # explicit overrides always win over auto_tune's choices
+        cfg = dataclasses.replace(auto_tune(cfg, cs.num_triangles), **overrides)
+    return Renderer(cs, probe, cfg, camera, demand=demand)
+
+
+def make_spectral_renderer(
+    cs: CompiledScene, probe: Probe, camera: Camera,
+    width=1200, height=1024, spp=4, max_depth=4, **overrides,
+) -> SpectralRenderer:
+    """Config 4: sv3 — spectral rendering with probe light sampling, depth 4."""
+    cfg = RenderConfig(
+        width=width, height=height, samples_per_launch=spp, max_depth=max_depth,
+        **overrides,
+    )
+    if "traversal" not in overrides:
+        cfg = dataclasses.replace(auto_tune(cfg, cs.num_triangles), **overrides)
+    return SpectralRenderer(cs, probe, cfg, camera)
+
+
+def make_foveated_renderer(
+    cs: CompiledScene, probe: Probe, camera: Camera,
+    width=3840, height=2160, max_depth=4, foveation: FoveationConfig | None = None,
+    fused: bool | None = None, **overrides,
+) -> FoveatedRenderer:
+    """Config 5: sv4 VMV'23 — 3-zone foveation at 3840x2160, depth 4,
+    radii 157/515, zone spp 1/2/8 (SimplePathtracer.cpp:20-21,135-215).
+    fused=True traces all zones in one wavefront launch; None = auto (fused
+    at interactive sizes, where one launch amortizes the per-dispatch and
+    per-sweep floors the three zone launches each pay)."""
+    if fused is None:
+        fused = width * height <= 1024 * 768
+    cfg = RenderConfig(width=width, height=height, max_depth=max_depth, **overrides)
+    if "traversal" not in overrides:
+        cfg = dataclasses.replace(auto_tune(cfg, cs.num_triangles), **overrides)
+    return FoveatedRenderer(
+        cs, probe, cfg, camera, foveation or FoveationConfig(), fused=fused
+    )
+
+
+def make_adaptive_renderer(
+    cs: CompiledScene, probe: Probe, camera: Camera,
+    width=1200, height=1024, spp=4, max_depth=4,
+    refine_fraction=0.25, warmup_spp: int | None = None, area_light=None,
+    **overrides,
+):
+    """Variance-guided adaptive sampling over the Disney PT engine
+    (beyond-parity: the reference distributes samples uniformly or by gaze).
+    Each render() after the warmup refines the top `refine_fraction` of
+    16x8 tiles by measured relative variance with `spp` fresh samples."""
+    from ..engine.adaptive import AdaptiveRenderer
+
+    cfg = RenderConfig(
+        width=width, height=height, samples_per_launch=spp, max_depth=max_depth,
+        **overrides,
+    )
+    if "traversal" not in overrides:
+        cfg = dataclasses.replace(auto_tune(cfg, cs.num_triangles), **overrides)
+    return AdaptiveRenderer(
+        cs, probe, cfg, camera, area_light=area_light,
+        warmup_spp=spp if warmup_spp is None else warmup_spp,
+        refine_spp=spp, refine_fraction=refine_fraction,
+    )
+
+
+PRESETS = {
+    "hello_raytracing": make_hello_renderer,
+    "whitted": make_whitted_renderer,
+    "disney_pt": make_disney_pt_renderer,
+    "spectral": make_spectral_renderer,
+    "foveated": make_foveated_renderer,
+}

@@ -13,9 +13,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.io.obj import save_obj
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.io.obj import save_obj
 
 
 def cornell_box() -> HostScene:
@@ -114,7 +114,7 @@ def _tex_plaster(n=256, seed=3):
 def textured_box(material: dict, pos, extent, uv_scale=1.0):
     """An add_box-style Mesh with per-face planar UVs in world units
     (u, v span the face's two in-plane axes scaled by uv_scale)."""
-    from optixpathtracer_tpu.core.scene import Mesh
+    from optixpathtracer.core.scene import Mesh
 
     pos = np.asarray(pos, np.float32)
     e = np.asarray(extent, np.float32)

@@ -9,13 +9,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.lights.lights import QuadLight
-from optixpathtracer_tpu.lights.probe import build_probe
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.lights.lights import QuadLight
+from optixpathtracer.lights.probe import build_probe
 
 W, H = 96, 64
 
@@ -56,7 +56,7 @@ def _cam(eye, lookat):
 
 
 def render_disney_open(frames=2):
-    from optixpathtracer_tpu.engine.renderer import Renderer
+    from optixpathtracer.engine.renderer import Renderer
 
     cs = compile_scene(_open_scene())
     cfg = RenderConfig(width=W, height=H, samples_per_launch=4, max_depth=3,
@@ -67,7 +67,7 @@ def render_disney_open(frames=2):
 
 
 def render_disney_cornell(frames=2):
-    from optixpathtracer_tpu.engine.renderer import Renderer
+    from optixpathtracer.engine.renderer import Renderer
 
     cs = compile_scene(_cornell_scene())
     probe = build_probe(np.full((8, 16, 3), 0.0, np.float32) + 1e-6)
@@ -84,21 +84,21 @@ def render_disney_cornell(frames=2):
 
 
 def render_hello():
-    from optixpathtracer_tpu.models import make_hello_renderer
+    from optixpathtracer.models import make_hello_renderer
 
     cs = compile_scene(_open_scene())
     return make_hello_renderer(cs, _cam((3.2, 2.2, 4.0), (0, 0.4, 0)), W, H).render()
 
 
 def render_whitted():
-    from optixpathtracer_tpu.models.whitted import make_renderer
+    from optixpathtracer.models.whitted import make_renderer
 
     r = make_renderer(width=W, height=H, max_depth=3)
     return r.render()
 
 
 def render_spectral(frames=2):
-    from optixpathtracer_tpu.engine.spectral import SpectralRenderer
+    from optixpathtracer.engine.spectral import SpectralRenderer
 
     cs = compile_scene(_open_scene())
     cfg = RenderConfig(width=W, height=H, samples_per_launch=2, max_depth=3,
@@ -111,7 +111,7 @@ def render_spectral(frames=2):
 
 
 def render_foveated(frames=2):
-    from optixpathtracer_tpu.engine.foveated import FoveatedRenderer, FoveationConfig
+    from optixpathtracer.engine.foveated import FoveatedRenderer, FoveationConfig
 
     cs = compile_scene(_open_scene())
     cfg = RenderConfig(width=W, height=H, samples_per_launch=1, max_depth=2,
@@ -129,8 +129,8 @@ def render_gltf():
     import struct
     import tempfile
 
-    from optixpathtracer_tpu.engine.renderer import Renderer
-    from optixpathtracer_tpu.io.gltf import load_gltf
+    from optixpathtracer.engine.renderer import Renderer
+    from optixpathtracer.io.gltf import load_gltf
 
     # one triangle-quad mesh instanced by two nodes with different transforms
     pos = np.array(
@@ -187,8 +187,8 @@ def render_gltf():
 def render_loft(frames=2):
     """Textured closed interior (scenes/loft.obj): exercises texture
     sampling, shading normals and emissive-geometry lighting at once."""
-    from optixpathtracer_tpu.engine.renderer import Renderer
-    from optixpathtracer_tpu.io.obj import load_obj
+    from optixpathtracer.engine.renderer import Renderer
+    from optixpathtracer.io.obj import load_obj
 
     cs = compile_scene(load_obj("scenes/loft.obj"))
     probe = build_probe(np.full((8, 16, 3), 0.0, np.float32) + 1e-6)
@@ -213,7 +213,7 @@ def _cam_s(eye, lookat):
 
 
 def render_disney_open_small():
-    from optixpathtracer_tpu.engine.renderer import Renderer
+    from optixpathtracer.engine.renderer import Renderer
 
     cs = compile_scene(_open_scene())
     cfg = RenderConfig(width=WS, height=HS, samples_per_launch=2, max_depth=2,
@@ -224,7 +224,7 @@ def render_disney_open_small():
 
 
 def render_disney_cornell_small():
-    from optixpathtracer_tpu.engine.renderer import Renderer
+    from optixpathtracer.engine.renderer import Renderer
 
     cs = compile_scene(_cornell_scene())
     probe = build_probe(np.full((8, 16, 3), 0.0, np.float32) + 1e-6)
@@ -241,14 +241,14 @@ def render_disney_cornell_small():
 
 
 def render_whitted_small():
-    from optixpathtracer_tpu.models.whitted import make_renderer
+    from optixpathtracer.models.whitted import make_renderer
 
     r = make_renderer(width=WS, height=HS, max_depth=2)
     return r.render()
 
 
 def render_spectral_small():
-    from optixpathtracer_tpu.engine.spectral import SpectralRenderer
+    from optixpathtracer.engine.spectral import SpectralRenderer
 
     cs = compile_scene(_open_scene())
     cfg = RenderConfig(width=WS, height=HS, samples_per_launch=1, max_depth=2,
@@ -258,7 +258,7 @@ def render_spectral_small():
 
 
 def render_foveated_small():
-    from optixpathtracer_tpu.engine.foveated import FoveatedRenderer, FoveationConfig
+    from optixpathtracer.engine.foveated import FoveatedRenderer, FoveationConfig
 
     cs = compile_scene(_open_scene())
     cfg = RenderConfig(width=WS, height=HS, samples_per_launch=1, max_depth=1,
@@ -271,8 +271,8 @@ def render_foveated_small():
 
 
 def render_loft_small():
-    from optixpathtracer_tpu.engine.renderer import Renderer
-    from optixpathtracer_tpu.io.obj import load_obj
+    from optixpathtracer.engine.renderer import Renderer
+    from optixpathtracer.io.obj import load_obj
 
     cs = compile_scene(load_obj("scenes/loft.obj"))
     probe = build_probe(np.full((8, 16, 3), 0.0, np.float32) + 1e-6)

@@ -1,31 +1,24 @@
 """Native C++ acceleration-structure compiler (native/src/accel.cpp) vs the
-numpy reference builders — equivalence and contract tests.
+numpy reference builders — equivalence tests.
 
 The native library fills the role of the reference's native accel build
-(optixAccelBuild, SimplePathtracer.cpp:457-601) for the TPU framework's
-host-side scene compile; the numpy builders define the semantics. Three
-stages must be BIT-EXACT (binary LBVH, wide collapse, cluster tables); the
-treelet order is contract-equivalent (numpy argpartition's intra-partition
-order is unspecified, so only cluster tightness is comparable).
+(optixAccelBuild, SimplePathtracer.cpp:457-601) for the host-side scene
+compile; the numpy builders define the semantics. Both stages must be
+BIT-EXACT (binary LBVH, wide collapse).
 """
 from __future__ import annotations
 
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.bvh import native
-from optixpathtracer_tpu.bvh.clusters import (
-    SUPER,
-    _cluster_tables_np,
-    treelet_order,
-)
-from optixpathtracer_tpu.bvh.lbvh import (
+from optixpathtracer.bvh import native
+from optixpathtracer.bvh.lbvh import (
     _np_karras_tree,
     _np_levels,
     _np_refit,
 )
-from optixpathtracer_tpu.bvh.morton import np_morton_codes
-from optixpathtracer_tpu.bvh.wide import collapse
+from optixpathtracer.bvh.morton import np_morton_codes
+from optixpathtracer.bvh.wide import collapse
 
 if native.get_lib() is None:
     pytest.skip("native accel library unavailable", allow_module_level=True)
@@ -67,14 +60,16 @@ def _np_binary(v0, v1, v2, leaf_size):
                 rmin=rmin, rmax=rmax, depth=depth)
 
 
-@pytest.mark.parametrize("n,seed,dupes", [
-    (1, 0, False), (3, 1, False), (4, 2, False), (97, 3, False),
-    (1000, 4, False), (1000, 5, True), (4096, 6, True),
+@pytest.mark.parametrize("n,seed,dupes,leaf_size", [
+    (1, 0, False, 4), (3, 1, False, 4), (4, 2, False, 4), (97, 3, False, 4),
+    (1000, 4, False, 4), (1000, 5, True, 4), (4096, 6, True, 4),
+    # leaf size 8 is what the renderers build (cli, bench)
+    (1, 7, False, 8), (9, 8, False, 8), (1000, 9, True, 8), (4099, 10, True, 8),
 ])
-def test_build_binary_bit_exact(n, seed, dupes):
+def test_build_binary_bit_exact(n, seed, dupes, leaf_size):
     v0, v1, v2 = _random_tris(n, seed, dupes)
-    ref = _np_binary(v0, v1, v2, leaf_size=4)
-    nat = native.build_binary(v0, v1, v2, leaf_size=4)
+    ref = _np_binary(v0, v1, v2, leaf_size=leaf_size)
+    nat = native.build_binary(v0, v1, v2, leaf_size=leaf_size)
     assert nat is not None
     np.testing.assert_array_equal(nat["order"], ref["order"])
     np.testing.assert_array_equal(nat["left"], ref["left"])
@@ -104,58 +99,6 @@ def test_wide_collapse_bit_exact(n, seed, width):
     np.testing.assert_array_equal(bbox_nat, bbox_ref)
 
 
-def _cluster_radii(ctr, order, c):
-    n = len(order) // c * c
-    grouped = ctr[order[:n]].reshape(-1, c, 3)
-    half = (grouped.max(axis=1) - grouped.min(axis=1)) / 2
-    return np.sqrt((half * half).sum(axis=1))
-
-
-@pytest.mark.parametrize("n,seed", [(1000, 0), (5000, 1), (130, 2)])
-def test_treelet_order_contract(n, seed):
-    """Native treelet order: a permutation whose aligned cluster runs are as
-    tight as the numpy builder's (mean bounding radius within 10%)."""
-    rng = np.random.default_rng(seed)
-    ctr = rng.uniform(-30, 30, (n, 3))
-    ctr[: n // 4, 1] *= 0.01  # a flattened slab region like the city ground
-    c = 64
-    nat = native.treelet_order(ctr, c, SUPER)
-    assert nat is not None
-    assert sorted(nat.tolist()) == list(range(n))  # a true permutation
-    import os
-
-    os.environ["OPTIX_TPU_NO_NATIVE"] = "1"
-    try:
-        ref = treelet_order(ctr, c)
-    finally:
-        del os.environ["OPTIX_TPU_NO_NATIVE"]
-    r_nat = _cluster_radii(ctr, nat, c).mean()
-    r_ref = _cluster_radii(ctr, ref, c).mean()
-    assert r_nat <= r_ref * 1.10, (r_nat, r_ref)
-
-
-@pytest.mark.parametrize("n,seed,c", [(1, 0, 128), (130, 1, 64), (1000, 2, 128),
-                                      (1100, 3, 128)])
-def test_cluster_tables_bit_exact(n, seed, c):
-    v0, v1, v2 = _random_tris(n, seed)
-    ref = _cluster_tables_np(v0, v1, v2, n, c)
-    nat = native.cluster_tables(v0, v1, v2, n, c)
-    assert nat is not None
-    for k in ("rows", "spheres", "super_spheres", "scene_aabb", "local_aabb"):
-        np.testing.assert_array_equal(np.asarray(nat[k]), np.asarray(ref[k]),
-                                      err_msg=k)
-
-
-def test_cluster_tables_num_real_below_input():
-    """num_real < len(input): the tail must become degenerate padding."""
-    v0, v1, v2 = _random_tris(300, 7)
-    ref = _cluster_tables_np(v0, v1, v2, 257, 64)
-    nat = native.cluster_tables(v0, v1, v2, 257, 64)
-    for k in ("rows", "spheres", "super_spheres", "scene_aabb"):
-        np.testing.assert_array_equal(np.asarray(nat[k]), np.asarray(ref[k]),
-                                      err_msg=k)
-
-
 def test_end_to_end_compile_scene_native_matches_numpy():
     """compile_scene with the native builder produces identical traversal
     results (closest-hit tri/t) to the pure-numpy build on random rays."""
@@ -163,12 +106,12 @@ def test_end_to_end_compile_scene_native_matches_numpy():
 
     import jax.numpy as jnp
 
-    from optixpathtracer_tpu.builder import compile_scene
-    from optixpathtracer_tpu.core.math import Vec3
-    from optixpathtracer_tpu.core.scene import HostScene
-    from optixpathtracer_tpu.ops.traverse import closest_hit
+    from optixpathtracer.builder import compile_scene
+    from optixpathtracer.core.math import Vec3
+    from optixpathtracer.core.scene import HostScene
+    from optixpathtracer.ops.traverse import closest_hit
 
-    from optixpathtracer_tpu.core.materials import make_material
+    from optixpathtracer.core.materials import make_material
 
     def build_host():
         hs = HostScene()
@@ -179,12 +122,12 @@ def test_end_to_end_compile_scene_native_matches_numpy():
                        (0.8, 1.2, 0.6))
         return hs
 
-    cs_nat = compile_scene(build_host(), build_cluster_set=True)
-    os.environ["OPTIX_TPU_NO_NATIVE"] = "1"
+    cs_nat = compile_scene(build_host())
+    os.environ["OPTIXPT_NO_NATIVE"] = "1"
     try:
-        cs_np = compile_scene(build_host(), build_cluster_set=True)
+        cs_np = compile_scene(build_host())
     finally:
-        del os.environ["OPTIX_TPU_NO_NATIVE"]
+        del os.environ["OPTIXPT_NO_NATIVE"]
 
     rng = np.random.default_rng(12)
     o = rng.uniform(-6, 6, (256, 3)).astype(np.float32)

@@ -16,10 +16,10 @@ import numpy as np
 import pytest
 
 from golden_scenes import _cam, _open_scene, _sky_probe
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.engine.adaptive import AdaptiveRenderer, _tile_layout
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.engine.adaptive import AdaptiveRenderer, _tile_layout
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
 
 W, H = 64, 48
 

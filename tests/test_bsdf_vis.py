@@ -4,8 +4,8 @@ splats, checked QUANTITATIVELY (samples must land where the pdf says)."""
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.shade.bsdf_vis import (
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.shade.bsdf_vis import (
     bsdf_maps,
     bsdf_sample_splat,
     bsdf_test_image,

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.bvh import morton
-from optixpathtracer_tpu.bvh.lbvh import build_bvh
+from optixpathtracer.bvh import morton
+from optixpathtracer.bvh.lbvh import build_bvh
 
 
 def _random_tris(rng, n, scale=1.0):

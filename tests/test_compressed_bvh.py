@@ -2,12 +2,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.bvh.wide import _bf16_down, _bf16_up
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.math import Vec3, normalize
-from optixpathtracer_tpu.core.scene import HostScene, Mesh
-from optixpathtracer_tpu.ops.traverse_bfs import closest_hit_bfs
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.bvh.wide import _bf16_down, _bf16_up
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.math import Vec3, normalize
+from optixpathtracer.core.scene import HostScene, Mesh
+from optixpathtracer.ops.traverse_bfs import closest_hit_bfs
 
 
 def test_bf16_rounding_conservative(rng):

@@ -1,18 +1,18 @@
 import argparse
 
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.utils.config import (
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.utils.config import (
     RunConfig,
     add_config_args,
     config_from_args,
 )
-from optixpathtracer_tpu.utils.platform import auto_tune
+from optixpathtracer.utils.platform import auto_tune
 
 
 def test_runconfig_json_roundtrip():
     import dataclasses
 
-    from optixpathtracer_tpu.engine.foveated import FoveationConfig
+    from optixpathtracer.engine.foveated import FoveationConfig
 
     cfg = RunConfig(model="foveated", scene="x.obj", spp=7, width=320, height=200,
                     foveation=FoveationConfig(inner_radius=42))
@@ -72,7 +72,8 @@ def test_cli_sampling_flag_reaches_the_engine(tmp_path):
     import sys
 
     import numpy as np
-    from PIL import Image
+
+    from optixpathtracer.io.image import decode_png
 
     def render(strategy, out):
         argv = ["cli", "render", "--model", "disney_pt", "--width", "48",
@@ -81,12 +82,12 @@ def test_cli_sampling_flag_reaches_the_engine(tmp_path):
         old = sys.argv
         sys.argv = argv
         try:
-            runpy.run_module("optixpathtracer_tpu.cli", run_name="__main__")
+            runpy.run_module("optixpathtracer.cli", run_name="__main__")
         except SystemExit:
             pass
         finally:
             sys.argv = old
-        return np.asarray(Image.open(out), float)
+        return decode_png(out.read_bytes()).astype(float)
 
     a = render("sobol", tmp_path / "a.png")
     b = render("random", tmp_path / "b.png")

@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from optixpathtracer_tpu.core.math import Vec3
-from optixpathtracer_tpu.ops.curve_intersect import (
+from optixpathtracer.core.math import Vec3
+from optixpathtracer.ops.curve_intersect import (
     CurveScene,
     any_hit_curves,
     build_curves,
@@ -21,7 +21,7 @@ MAT = [{"name": "m"}]
 
 
 def _mat():
-    from optixpathtracer_tpu.core.materials import make_material
+    from optixpathtracer.core.materials import make_material
 
     return [make_material(color=(0.8, 0.4, 0.2))]
 
@@ -97,7 +97,7 @@ def test_cubic_vs_swept_sphere_oracle(rng):
     rec = closest_hit_curves(scene, o, d)
 
     # oracle: exact polynomial evaluated densely
-    from optixpathtracer_tpu.core import curves as cv
+    from optixpathtracer.core import curves as cv
 
     uu = np.linspace(0, 1, 4096, dtype=np.float32)
     p = scene.p
@@ -170,14 +170,14 @@ def test_whitted_engine_traces_curves():
     # a thick curve arching over the whitted floor must be visible in the
     # frame and cast a point-light shadow (engine-level integration)
     import jax
-    from optixpathtracer_tpu.builder import compile_scene
-    from optixpathtracer_tpu.core.camera import Camera
-    from optixpathtracer_tpu.core.materials import make_material
-    from optixpathtracer_tpu.core.scene import HostScene
-    from optixpathtracer_tpu.engine.whitted import WhittedConfig
-    from optixpathtracer_tpu.lights.lights import (
+    from optixpathtracer.builder import compile_scene
+    from optixpathtracer.core.camera import Camera
+    from optixpathtracer.core.materials import make_material
+    from optixpathtracer.core.scene import HostScene
+    from optixpathtracer.engine.whitted import WhittedConfig
+    from optixpathtracer.lights.lights import (
         build_lights, make_ambient_light, make_point_light)
-    from optixpathtracer_tpu.models.whitted import WhittedRenderer
+    from optixpathtracer.models.whitted import WhittedRenderer
 
     hs = HostScene()
     hs.add_box(make_material(color=(0.75, 0.75, 0.75), roughness=0.9),

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.core import curves
-from optixpathtracer_tpu.core.math import Vec3, dot, length
+from optixpathtracer.core import curves
+from optixpathtracer.core.math import Vec3, dot, length
 
 
 def _basis(k: int, u: np.ndarray) -> np.ndarray:

@@ -11,15 +11,15 @@ import jax
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.math import Vec3
-from optixpathtracer_tpu.core.scene import HostScene, Mesh
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.io.demand import DemandTextureManager, TILE
-from optixpathtracer_tpu.lights.probe import build_probe
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.math import Vec3
+from optixpathtracer.core.scene import HostScene, Mesh
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.io.demand import DemandTextureManager, TILE
+from optixpathtracer.lights.probe import build_probe
 
 
 def _textured_scene(tex_size=3 * TILE):
@@ -143,7 +143,7 @@ def test_demand_render_distributed_matches_single_device():
     OR-reduce across 'tiles' (one psum/frame), the single host pager
     services the union, and the settled sharded render equals the
     resident-TexturePool render exactly."""
-    from optixpathtracer_tpu.parallel.tiles import DistributedRenderer, make_mesh
+    from optixpathtracer.parallel.tiles import DistributedRenderer, make_mesh
 
     hs = _textured_scene()
     cs = compile_scene(hs)

@@ -1,4 +1,4 @@
-"""Demand-loaded sparse textures (io/demand.py) — the TPU equivalent of the
+"""Demand-loaded sparse textures (io/demand.py) — the array-native equivalent of the
 reference's disabled DemandLoading/ImageSource libraries.
 
 Contract under test (DemandLoader.h:30-60 semantics):
@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from optixpathtracer_tpu.io.demand import (
+from optixpathtracer.io.demand import (
     STORE,
     TILE,
     ArraySource,

@@ -2,7 +2,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.ops.denoise import atrous_denoise, bilateral_denoise
+from optixpathtracer.ops.denoise import atrous_denoise, bilateral_denoise
 
 
 def _noisy_scene(rng, h=48, w=64):

@@ -5,16 +5,16 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.math import Vec3, normalize
-from optixpathtracer_tpu.core.scene import HostScene, Mesh
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.lights.probe import build_probe
-from optixpathtracer_tpu.ops.dense import closest_hit_dense
-from optixpathtracer_tpu.ops.traverse import BIG_T, brute_force_closest_hit
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.math import Vec3, normalize
+from optixpathtracer.core.scene import HostScene, Mesh
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.lights.probe import build_probe
+from optixpathtracer.ops.dense import closest_hit_dense
+from optixpathtracer.ops.traverse import BIG_T, brute_force_closest_hit
 
 
 def _soup(rng, n_tris=700):  # > BLOCK so the scan loops
@@ -47,7 +47,7 @@ def test_dense_matches_brute_force(rng):
 @pytest.mark.slow
 def test_dense_render_matches_lockstep_enclosed():
     """Enclosed cornell-style scene — the case where BFS worklists overflow."""
-    from optixpathtracer_tpu.io.obj import load_obj
+    from optixpathtracer.io.obj import load_obj
 
     hs = load_obj("scenes/cornell_box.obj")
     cs = compile_scene(hs)

@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.core.materials import build_table, make_material
-from optixpathtracer_tpu.core.math import Vec3, basis_from_vector, dot, normalize
-from optixpathtracer_tpu.core.rng import RngState
-from optixpathtracer_tpu.shade import disney
+from optixpathtracer.core.materials import build_table, make_material
+from optixpathtracer.core.math import Vec3, basis_from_vector, dot, normalize
+from optixpathtracer.core.rng import RngState
+from optixpathtracer.shade import disney
 
 
 def _mat_batch(n, **over):
@@ -157,7 +157,7 @@ def test_bsdf_eval_joint_affine_in_albedo_and_cspec0():
     lives entirely inside cspec0)."""
     import numpy as np
 
-    from optixpathtracer_tpu.core.materials import build_table, make_material
+    from optixpathtracer.core.materials import build_table, make_material
 
     rng = np.random.default_rng(5)
     n = 256

@@ -1,26 +1,26 @@
 """Backend dispatch: every preset must route through ops/dispatch (round-1
-verdict: hello_raytracing and whitted were hardwired to lockstep, which is
-~0.01 Mrays/s on TPU), and all backends must agree on the same scene."""
+verdict: hello_raytracing and whitted were hardwired to one backend), and
+all backends must agree on the same scene."""
 import pathlib
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.math import Vec3
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.ops.dispatch import trace_closest, trace_occluded
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.math import Vec3
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.ops.dispatch import trace_closest, trace_occluded
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "optixpathtracer_tpu"
+PKG = pathlib.Path(__file__).resolve().parents[1] / "optixpathtracer"
 
 
 def _scene():
     hs = HostScene()
     hs.add_box(make_material(color=(0.8, 0.8, 0.8)), pos=(0, -0.1, 0), extent=(5, 0.1, 5))
     hs.add_box(make_material(color=(0.7, 0.3, 0.2)), pos=(0, 0.5, 0), extent=(0.5, 0.5, 0.5))
-    return compile_scene(hs, cluster_size=64)
+    return compile_scene(hs)
 
 
 def _rays(n=300, seed=3):
@@ -41,7 +41,7 @@ def test_all_backends_agree():
     o, d = _rays()
     recs = {
         tr: trace_closest(cs, o, d, 1e-3, 1e16, traversal=tr)
-        for tr in ("lockstep", "bfs", "dense", "cluster")
+        for tr in ("lockstep", "bfs", "dense")
     }
     base = recs["lockstep"]
     for name, rec in recs.items():
@@ -57,7 +57,7 @@ def test_occlusion_backends_agree():
     cs = _scene()
     o, d = _rays(seed=7)
     base = np.asarray(trace_occluded(cs, o, d, 1e-2, 8.0, traversal="lockstep"))
-    for tr in ("bfs", "dense", "cluster"):
+    for tr in ("bfs", "dense"):
         occ = np.asarray(trace_occluded(cs, o, d, 1e-2, 8.0, traversal=tr))
         assert (occ == base).all(), tr
 
@@ -67,7 +67,8 @@ def test_presets_do_not_hardwire_backends():
     they must go through ops.dispatch (wavefront's config-driven selector is
     the one sanctioned exception)."""
     banned = ("ops.traverse import", "ops.traverse_bfs import",
-              "ops.traverse_cluster import", "ops.dense import")
+              "ops.traverse_gpu import", "ops import traverse_gpu",
+              "ops.dense import")
     for rel in ("models/hello_raytracing.py", "models/whitted.py",
                 "engine/whitted.py", "engine/foveated.py", "engine/spectral.py"):
         src = (PKG / rel).read_text()
@@ -76,20 +77,21 @@ def test_presets_do_not_hardwire_backends():
 
 
 def test_wavefront_presets_auto_tune(monkeypatch):
-    """Round-2 regression: the disney/spectral/foveated presets must route
-    their RenderConfig through auto_tune (round-1 left cfg.traversal at the
-    'lockstep' default, which faults/stalls on TPU)."""
+    """The disney/spectral/foveated presets must route their RenderConfig
+    through auto_tune: on a GPU platform they get the CUDA traversal and
+    the measured ray-sorting choice (round 1 left cfg.traversal at the
+    'lockstep' default whatever the device)."""
     import numpy as np
 
-    from optixpathtracer_tpu import models
-    from optixpathtracer_tpu.builder import compile_scene
-    from optixpathtracer_tpu.core.camera import Camera
-    from optixpathtracer_tpu.core.materials import make_material
-    from optixpathtracer_tpu.core.scene import HostScene
-    from optixpathtracer_tpu.lights.probe import build_probe
-    from optixpathtracer_tpu.utils import platform
+    from optixpathtracer import models
+    from optixpathtracer.builder import compile_scene
+    from optixpathtracer.core.camera import Camera
+    from optixpathtracer.core.materials import make_material
+    from optixpathtracer.core.scene import HostScene
+    from optixpathtracer.lights.probe import build_probe
+    from optixpathtracer.utils import platform
 
-    monkeypatch.setattr(platform, "on_tpu", lambda: True)
+    monkeypatch.setattr(platform, "device_platform", lambda: "gpu")
 
     hs = HostScene()
     hs.add_box(make_material(), pos=(0, 0, 0), extent=(1, 1, 1))
@@ -98,13 +100,15 @@ def test_wavefront_presets_auto_tune(monkeypatch):
     cam = Camera()
 
     r = models.make_disney_pt_renderer(cs, probe, cam, width=64, height=48, spp=1)
-    assert r.config.traversal == "cluster" and r.config.sort_rays
+    assert r.config.traversal == "gpu"
+    assert r.config.sort_rays == platform.DEFAULTS["gpu"][1]
+    assert r.config.dispatch_tiles == 1
 
     rs = models.make_spectral_renderer(cs, probe, cam, width=64, height=48, spp=1)
-    assert rs.config.traversal == "cluster"
+    assert rs.config.traversal == "gpu"
 
     rf = models.make_foveated_renderer(cs, probe, cam, width=64, height=48)
-    assert rf.config.traversal == "cluster"
+    assert rf.config.traversal == "gpu"
 
     # explicit override wins
     r2 = models.make_disney_pt_renderer(

@@ -1,14 +1,14 @@
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.foveated import FoveatedRenderer, FoveationConfig
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.lights.probe import build_probe
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.foveated import FoveatedRenderer, FoveationConfig
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.lights.probe import build_probe
 
 
 def _scene():
@@ -29,7 +29,7 @@ def _small_fov():
 
 @pytest.mark.slow
 def test_foveated_covers_frame_and_matches_uniform_roughly():
-    from optixpathtracer_tpu.core.math import Vec3
+    from optixpathtracer.core.math import Vec3
     import jax.numpy as jnp
 
     cs = _scene()

@@ -12,13 +12,13 @@ compositing vs the batch fold's spp-mean), so interiors still match tightly.
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.foveated import FoveatedRenderer, FoveationConfig
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.lights.probe import build_probe
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.foveated import FoveatedRenderer, FoveationConfig
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.lights.probe import build_probe
 
 
 def _setup(antialias: bool):

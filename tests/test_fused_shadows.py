@@ -3,16 +3,16 @@ import dataclasses
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import (
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import (
     MATERIAL_FLAG_SHADOW_CATCHER,
     make_material,
 )
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.lights.probe import build_probe, make_test_probe
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.lights.probe import build_probe, make_test_probe
 
 
 def _cs(catcher=False):

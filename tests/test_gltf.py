@@ -4,7 +4,7 @@ import json
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.io.gltf import load_gltf
+from optixpathtracer.io.gltf import load_gltf
 
 
 def _tri_gltf(tmp_path, translation=None):
@@ -57,11 +57,11 @@ def test_gltf_node_transform(tmp_path):
 
 
 def test_gltf_renders(tmp_path):
-    from optixpathtracer_tpu.builder import compile_scene
-    from optixpathtracer_tpu.core.camera import Camera
-    from optixpathtracer_tpu.core.math import Vec3, normalize
-    from optixpathtracer_tpu.engine.wavefront import CameraParams
-    from optixpathtracer_tpu.ops.traverse import closest_hit
+    from optixpathtracer.builder import compile_scene
+    from optixpathtracer.core.camera import Camera
+    from optixpathtracer.core.math import Vec3, normalize
+    from optixpathtracer.engine.wavefront import CameraParams
+    from optixpathtracer.ops.traverse import closest_hit
     import jax.numpy as jnp
 
     scene, _ = load_gltf(_tri_gltf(tmp_path))
@@ -75,22 +75,19 @@ def test_gltf_renders(tmp_path):
 def test_gltf_embedded_texture(tmp_path):
     """GLB with the texture EMBEDDED in the binary chunk via bufferView —
     the common exporter layout; round-1 skipped these (factor-only)."""
-    import io
     import json as _json
     import struct
 
     import numpy as np
-    from PIL import Image
 
-    from optixpathtracer_tpu.io.gltf import load_gltf
+    from optixpathtracer.io.gltf import load_gltf
+    from optixpathtracer.io.image import encode_png
 
     # 2x2 PNG: distinct quadrant colors
     px = np.array(
         [[[255, 0, 0], [0, 255, 0]], [[0, 0, 255], [255, 255, 255]]], np.uint8
     )
-    png = io.BytesIO()
-    Image.fromarray(px).save(png, format="PNG")
-    png_bytes = png.getvalue()
+    png_bytes = encode_png(px)
     png_bytes += b"\x00" * (-len(png_bytes) % 4)
 
     pos = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32)
@@ -239,45 +236,3 @@ def _reuse_gltf(tmp_path, n_nodes=6):
     p = tmp_path / "reuse.gltf"
     p.write_text(json.dumps(doc))
     return str(p)
-
-
-@pytest.mark.slow
-def test_gltf_tlas_node_reuse_matches_baked(tmp_path):
-    """A mesh reused by N nodes traces ONE stored BLAS through the TLAS and
-    renders the same image as the baked loader (which duplicates it N times)."""
-    import jax.numpy as jnp
-
-    from optixpathtracer_tpu.builder import compile_scene, compile_tlas
-    from optixpathtracer_tpu.core.camera import Camera
-    from optixpathtracer_tpu.core.math import Vec3
-    from optixpathtracer_tpu.io.gltf import load_gltf_tlas
-    from optixpathtracer_tpu.ops.traverse_cluster import closest_hit_cluster
-
-    path = _reuse_gltf(tmp_path, n_nodes=6)
-    hs_t, groups, instances, _ = load_gltf_tlas(path)
-    assert len(hs_t.meshes) == 1          # stored ONCE
-    assert len(groups) == 1 and len(instances) == 6
-
-    hs_b, _ = load_gltf(path)
-    assert len(hs_b.meshes) == 6          # baked duplicates
-
-    ct = compile_tlas(hs_t, groups, instances, cluster_size=64)
-    cb = compile_scene(hs_b, cluster_size=64, build_wide_bvh=False)
-    assert ct.num_triangles == cb.num_triangles == 12
-
-    rng = np.random.default_rng(3)
-    o = rng.uniform(-3, 13, (512, 3)).astype(np.float32)
-    o[:, 1] = rng.uniform(0.2, 4.0, 512)
-    d = rng.normal(0, 1, (512, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    ov = Vec3(*(jnp.asarray(o[:, i]) for i in range(3)))
-    dv = Vec3(*(jnp.asarray(d[:, i]) for i in range(3)))
-    rt = closest_hit_cluster(ct.clusters, ov, dv, 1e-3, 1e16, interpret=True)
-    rb = closest_hit_cluster(cb.clusters, ov, dv, 1e-3, 1e16, interpret=True)
-    hit_t = np.asarray(rt.tri) >= 0
-    hit_b = np.asarray(rb.tri) >= 0
-    assert hit_t.any()
-    assert (hit_t == hit_b).all()
-    np.testing.assert_allclose(
-        np.asarray(rt.t)[hit_b], np.asarray(rb.t)[hit_b], rtol=2e-4, atol=2e-4
-    )

@@ -3,7 +3,7 @@ missing-item #4 — textures + emissives must survive the OBJ round trip."""
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.io.obj import load_obj
+from optixpathtracer.io.obj import load_obj
 
 
 @pytest.fixture(scope="module")
@@ -27,7 +27,7 @@ def test_loft_is_textured_interior(loft):
 
 
 def test_loft_is_closed_and_compilable(loft):
-    from optixpathtracer_tpu.builder import compile_scene
+    from optixpathtracer.builder import compile_scene
 
     cs = compile_scene(loft)
     assert cs.num_triangles >= 400

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.core import math as m
+from optixpathtracer.core import math as m
 
 
 def _rand_vec3(rng, n):

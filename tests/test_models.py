@@ -2,12 +2,12 @@
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.lights.probe import build_probe
-from optixpathtracer_tpu import models
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.lights.probe import build_probe
+from optixpathtracer import models
 
 
 def _scene_cam():
@@ -29,6 +29,21 @@ def test_hello_raytracing_preset():
     assert rgba.dtype == np.uint8 and rgba.shape == (48, 64, 4)
     # shadow ray darkens some lit region: image has contrast
     assert img.std() > 0.02
+
+
+@pytest.mark.parametrize("tiles,want", [(50, 12), (5, 6), (None, 1), (0, 1)])
+def test_whitted_dispatch_tiles_clamped(tiles, want):
+    """More chunks than pixels used to loop forever looking for a divisor:
+    the chunk count is clamped to the pixel count and rounded up to one that
+    divides it."""
+    from optixpathtracer.engine.whitted import WhittedConfig
+    from optixpathtracer.models.whitted import WhittedRenderer, default_scene
+
+    ss, cs, lights = default_scene()
+    cfg = WhittedConfig(width=4, height=3, max_depth=1)
+    r = WhittedRenderer(ss, cs, lights, cfg, Camera(), dispatch_tiles=tiles)
+    assert r.dispatch_tiles == want
+    assert sum(len(px) for px in r._px) == 12
 
 
 @pytest.mark.slow
@@ -66,7 +81,7 @@ def test_spectral_preset():
 
 @pytest.mark.slow
 def test_foveated_preset():
-    from optixpathtracer_tpu.engine.foveated import FoveationConfig
+    from optixpathtracer.engine.foveated import FoveationConfig
 
     cs, cam = _scene_cam()
     probe = build_probe(np.full((16, 32, 3), 0.5, np.float32))

@@ -14,16 +14,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.wavefront import (
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.wavefront import (
     CameraParams,
     RenderConfig,
     trace_wavefront,
 )
-from optixpathtracer_tpu.lights.probe import build_probe
+from optixpathtracer.lights.probe import build_probe
 
 
 def _setup(width=24, height=16, spp=4, max_depth=3, **kw):

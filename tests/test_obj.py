@@ -1,8 +1,8 @@
 import numpy as np
 
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.io.obj import load_obj, save_obj
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.io.obj import load_obj, save_obj
 
 
 def test_obj_roundtrip(tmp_path):

@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.io.native import get_lib
-from optixpathtracer_tpu.io.obj import _load_obj_python, load_obj, save_obj
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.io.native import get_lib
+from optixpathtracer.io.obj import _load_obj_python, load_obj, save_obj
 
 needs_native = pytest.mark.skipif(get_lib() is None, reason="no C++ toolchain")
 

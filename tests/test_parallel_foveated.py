@@ -12,14 +12,14 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.foveated import FoveatedRenderer, FoveationConfig
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.lights.probe import build_probe
-from optixpathtracer_tpu.parallel.foveated import DistributedFoveatedRenderer
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.foveated import FoveatedRenderer, FoveationConfig
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.lights.probe import build_probe
+from optixpathtracer.parallel.foveated import DistributedFoveatedRenderer
 
 
 def _setup():

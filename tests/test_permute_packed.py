@@ -1,12 +1,12 @@
 """permute_packed (engine/wavefront): the packed-row permutation that
-replaces wide variadic sorts (which hang XLA:TPU compilation) — must be an
+replaces wide variadic sorts — must be an
 EXACT reorder for every carried dtype, including full-range uint32 RNG
 words that do not survive a float round-trip."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from optixpathtracer_tpu.engine.wavefront import permute_packed
+from optixpathtracer.engine.wavefront import permute_packed
 
 
 def test_exact_roundtrip_all_dtypes():

@@ -1,9 +1,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.core.math import Vec3, normalize
-from optixpathtracer_tpu.core.rng import RngState
-from optixpathtracer_tpu.lights import probe as P
+from optixpathtracer.core.math import Vec3, normalize
+from optixpathtracer.core.rng import RngState
+from optixpathtracer.lights import probe as P
 
 
 def _gradient_probe(w=64, h=32):

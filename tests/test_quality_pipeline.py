@@ -34,11 +34,11 @@ import numpy as np
 import pytest
 
 from golden_scenes import _cam, _open_scene, _sky_probe
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.engine.adaptive import AdaptiveRenderer
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.ops.denoise import atrous_denoise
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.engine.adaptive import AdaptiveRenderer
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.ops.denoise import atrous_denoise
 
 W, H = 64, 48
 
@@ -125,12 +125,12 @@ def test_denoise_stage_improves_adaptive_sobol_render():
     "FALSE — uniform 6 spp RMSE 0.101 vs pipeline 0.168 (raw adaptive 4 spp "
     "0.219; denoise iterations 2-4 / var_boost 64-256 all land 0.168-0.178). "
     "The pipeline's win needs the high-resolution regime where the A-Trous "
-    "footprint spans many independent pixels (600x400: 0.029 at 4 spp, "
-    "driver-verified on-chip, BENCH_LOCAL_r5). Kept as an honest record of "
-    "where the crossover is NOT yet reached off-TPU.",
+    "footprint spans many independent pixels (bench.py quality track at "
+    "600x400). Kept as an honest record of where the crossover is NOT yet "
+    "reached at CPU test sizes.",
     strict=False)
 def test_equal_budget_pipeline_beats_uniform_medium_res():
-    """ADVICE r4: the >=3x bench headline's DIRECTION verified off-TPU at a
+    """The >=3x bench headline's DIRECTION verified on the CPU at a
     resolution where the A-Trous kernel support is a small fraction of the
     frame (160x120): at an equal sample budget the composed pipeline's
     sqrt-space RMSE must beat uniform PT's. (The magnitude of the win stays

@@ -2,16 +2,16 @@
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import (
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import (
     MATERIAL_FLAG_SHADOW_CATCHER,
     make_material,
 )
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.lights.probe import build_probe, make_test_probe
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.lights.probe import build_probe, make_test_probe
 
 
 def _box_scene(catcher_floor=False, emissive=False):
@@ -180,7 +180,7 @@ def test_sort_rays_bit_identical():
     order-independent."""
     cs = _box_scene()
     probe = _uniform_probe()
-    base = dict(width=48, height=32, spp=2, max_depth=3, traversal="cluster")
+    base = dict(width=48, height=32, spp=2, max_depth=3, traversal="lockstep")
     f_plain = _renderer(cs, probe, **base).render()
     f_sorted = _renderer(cs, probe, sort_rays=True, **base).render()
     np.testing.assert_array_equal(f_plain, f_sorted)
@@ -190,7 +190,7 @@ def test_sort_rays_bit_identical():
 def test_sort_rays_bit_identical_fused():
     cs = _box_scene()
     probe = _uniform_probe()
-    base = dict(width=48, height=32, spp=1, max_depth=2, traversal="cluster",
+    base = dict(width=48, height=32, spp=1, max_depth=2, traversal="lockstep",
                 fused_shadows=True)
     f_plain = _renderer(cs, probe, **base).render()
     f_sorted = _renderer(cs, probe, sort_rays=True, **base).render()

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.core import rng as R
+from optixpathtracer.core import rng as R
 
 
 def test_tea_matches_reference_scalar():

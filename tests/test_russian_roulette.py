@@ -12,11 +12,11 @@ import dataclasses
 import numpy as np
 
 from golden_scenes import _cam, _open_scene, _sky_probe
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
 
 W, H = 48, 32
 

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.core import sampling as S
-from optixpathtracer_tpu.core.rng import RngState, randf2
+from optixpathtracer.core import sampling as S
+from optixpathtracer.core.rng import RngState, randf2
 
 
 def _uniforms(n, seed=0):
@@ -58,7 +58,7 @@ def test_stratified_2d_strata():
 def test_blue_noise_spacing_beats_random():
     """Best-candidate sets must have a larger minimum pairwise distance than
     white noise (the whole point of sample.h's generators)."""
-    from optixpathtracer_tpu.core.sampling import best_candidate_blue_noise
+    from optixpathtracer.core.sampling import best_candidate_blue_noise
 
     pts = best_candidate_blue_noise(128, candidates=24, seed=0)
     rng = np.random.default_rng(0)

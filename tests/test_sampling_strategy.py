@@ -15,18 +15,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.wavefront import (
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.wavefront import (
     _LD_SALT_NEE,
     CameraParams,
     RenderConfig,
     _ld_bases,
     trace_wavefront,
 )
-from optixpathtracer_tpu.lights.probe import build_probe
+from optixpathtracer.lights.probe import build_probe
 
 W, H = 24, 16
 

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.core.sobol import (
+from optixpathtracer.core.sobol import (
     nested_uniform_scramble,
     reverse_bits32,
     sobol02_point,
@@ -131,7 +131,7 @@ def test_sobol_composes_with_sort_and_batch():
     launches reproduce the plain launch exactly."""
     import jax.numpy as jnp
 
-    from optixpathtracer_tpu.engine.wavefront import (
+    from optixpathtracer.engine.wavefront import (
         CameraParams,
         RenderConfig,
         trace_wavefront,

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.core import spectrum as S
-from optixpathtracer_tpu.core.math import Vec3
+from optixpathtracer.core import spectrum as S
+from optixpathtracer.core.math import Vec3
 
 
 def test_cie_y_peak_near_555():

@@ -2,13 +2,13 @@
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene, Mesh, TexturePool, pack_textures
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.lights.probe import build_probe
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene, Mesh, TexturePool, pack_textures
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.lights.probe import build_probe
 import jax.numpy as jnp
 
 

@@ -1,11 +1,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.math import Vec3, normalize
-from optixpathtracer_tpu.core.scene import HostScene, Mesh
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.ops.traverse import (
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.math import Vec3, normalize
+from optixpathtracer.core.scene import HostScene, Mesh
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.ops.traverse import (
     BIG_T,
     any_hit,
     brute_force_closest_hit,

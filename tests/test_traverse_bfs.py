@@ -3,12 +3,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.math import Vec3, normalize
-from optixpathtracer_tpu.core.scene import HostScene, Mesh
-from optixpathtracer_tpu.ops.traverse import BIG_T, brute_force_closest_hit
-from optixpathtracer_tpu.ops.traverse_bfs import any_hit_bfs, closest_hit_bfs
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.math import Vec3, normalize
+from optixpathtracer.core.scene import HostScene, Mesh
+from optixpathtracer.ops.traverse import BIG_T, brute_force_closest_hit
+from optixpathtracer.ops.traverse_bfs import any_hit_bfs, closest_hit_bfs
 
 
 def _soup(rng, n_tris=300, scale=2.0):

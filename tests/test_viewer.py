@@ -5,14 +5,14 @@ import urllib.request
 import numpy as np
 import pytest
 
-from optixpathtracer_tpu.builder import compile_scene
-from optixpathtracer_tpu.core.camera import Camera, Trackball
-from optixpathtracer_tpu.core.materials import make_material
-from optixpathtracer_tpu.core.scene import HostScene
-from optixpathtracer_tpu.engine.renderer import Renderer
-from optixpathtracer_tpu.engine.wavefront import RenderConfig
-from optixpathtracer_tpu.lights.probe import build_probe
-from optixpathtracer_tpu.viewer.server import ViewerServer
+from optixpathtracer.builder import compile_scene
+from optixpathtracer.core.camera import Camera, Trackball
+from optixpathtracer.core.materials import make_material
+from optixpathtracer.core.scene import HostScene
+from optixpathtracer.engine.renderer import Renderer
+from optixpathtracer.engine.wavefront import RenderConfig
+from optixpathtracer.lights.probe import build_probe
+from optixpathtracer.viewer.server import ViewerServer
 
 
 def _renderer():
@@ -37,10 +37,10 @@ def test_viewer_serves_frames_and_events():
         base = f"http://127.0.0.1:{server.port}"
 
         page = urllib.request.urlopen(base + "/", timeout=5).read()
-        assert b"optixpathtracer_tpu" in page
+        assert b"optixpathtracer" in page
 
-        jpg = urllib.request.urlopen(base + "/frame.jpg", timeout=5).read()
-        assert jpg[:2] == b"\xff\xd8"  # JPEG magic
+        png = urllib.request.urlopen(base + "/frame.png", timeout=5).read()
+        assert png[:8] == b"\x89PNG\r\n\x1a\n"  # PNG signature
 
         stats = json.loads(urllib.request.urlopen(base + "/stats", timeout=5).read())
         assert stats["frames"] == 1

@@ -6,7 +6,7 @@ The reference commits its benchmark evidence as raw per-frame dumps:
   - foveated-vs-uniform fps columns (HelloPathtracing_sv4_vmv23/
     final_fps.dat, written via sutil displayStats sutil.cpp:758-773).
 
-This tool renders the same A/B on TPU — foveated 3-zone (sv4 radii, zone
+This tool renders the same A/B — foveated 3-zone (sv4 radii, zone
 spp 1/2/8) against uniform 8 spp at the same resolution and depth — while
 the gaze follows a circular trajectory (the reference's gaze is the live
 mouse cursor, main.cpp:310-314), and writes both artifacts:
@@ -46,11 +46,11 @@ def main():
     import jax
 
     from bench import build_city_scene
-    from optixpathtracer_tpu.builder import compile_scene
-    from optixpathtracer_tpu.core.camera import Camera
-    from optixpathtracer_tpu.lights.probe import build_probe
-    from optixpathtracer_tpu import models
-    from optixpathtracer_tpu.utils.cache import enable_compilation_cache
+    from optixpathtracer.builder import compile_scene
+    from optixpathtracer.core.camera import Camera
+    from optixpathtracer.lights.probe import build_probe
+    from optixpathtracer import models
+    from optixpathtracer.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     w, h = (320, 240) if args.small else (1200, 800)
@@ -58,8 +58,7 @@ def main():
 
     hs = build_city_scene(n_boxes=n_boxes)
     print(f"devices: {jax.devices()}", flush=True)
-    cs = compile_scene(hs, leaf_size=8, wide_width=8, build_wide_bvh=False,
-                       cluster_size=256)
+    cs = compile_scene(hs, leaf_size=8, wide_width=8, build_wide_bvh=False)
     print(f"scene compiled: {cs.num_triangles} tris", flush=True)
     sky = np.full((64, 128, 3), 0.4, np.float32)
     sky[8:12, 30:34] = (60.0, 55.0, 45.0)
@@ -76,7 +75,7 @@ def main():
     # the zone grids don't overflow it (the 4K measurement uses them as-is)
     fov = None
     if args.small:
-        from optixpathtracer_tpu.engine.foveated import FoveationConfig
+        from optixpathtracer.engine.foveated import FoveationConfig
 
         fov = FoveationConfig(inner_radius=max(8, 157 * h // 2160),
                               outer_radius=max(24, 515 * h // 2160))
@@ -106,7 +105,6 @@ def main():
     # ---- uniform: full-res 8 spp, same depth (final_fps.dat's *_uni) ----
     ur = models.make_disney_pt_renderer(
         cs, probe, cam, w, h, spp=args.uni_spp, max_depth=4,
-        dispatch_tiles=1 if args.small else 8,
     )
     t_c = time.perf_counter()
     ur.render()  # compile

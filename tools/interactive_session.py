@@ -9,7 +9,7 @@ docs/sessions/interactive_640x480.tsv — the committed analog of the
 reference's committed session traces (data.tsv, written by
 sutil/sutil.cpp:758-773).
 
-Run (TPU):  PYTHONPATH=.:$PYTHONPATH python tools/interactive_session.py [--frames N]
+Run (on the GPU):  PYTHONPATH=.:$PYTHONPATH python tools/interactive_session.py [--frames N]
 """
 import argparse
 import json
@@ -27,16 +27,15 @@ def main():
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    from optixpathtracer_tpu.utils.cache import enable_compilation_cache
+    from optixpathtracer.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     import bench as B
-    from optixpathtracer_tpu.builder import compile_scene
-    from optixpathtracer_tpu.lights.probe import build_probe
+    from optixpathtracer.builder import compile_scene
+    from optixpathtracer.lights.probe import build_probe
 
     hs = B.build_city_scene(n_boxes=12500)
-    cs = compile_scene(hs, leaf_size=8, wide_width=8, build_wide_bvh=False,
-                       cluster_size=256)
+    cs = compile_scene(hs, leaf_size=8, wide_width=8, build_wide_bvh=False)
     sky = np.full((64, 128, 3), 0.4, np.float32)
     sky[8:12, 30:34] = (60.0, 55.0, 45.0)
     probe = build_probe(sky)

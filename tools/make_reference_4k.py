@@ -16,9 +16,8 @@ Two artifacts, both of the bench city under the 16:9 camera:
       the information content of the foveated periphery (factor-4 splat), so
       the companion RMSE measures exactly what the periphery can express.
 
-Run (TPU):  PYTHONPATH=. python tools/make_reference_4k.py
-            (~12 min disc + ~45 min companion; --skip-q / --skip-fovea to
-            split across sessions)
+Run (on the GPU):  PYTHONPATH=. python tools/make_reference_4k.py
+            (--skip-q / --skip-fovea to split across sessions)
 """
 import argparse
 import os
@@ -34,13 +33,12 @@ W4K, H4K = 3840, 2160
 
 def city_setup(w=W4K, h=H4K):
     import bench as B
-    from optixpathtracer_tpu.builder import compile_scene
-    from optixpathtracer_tpu.core.camera import Camera
-    from optixpathtracer_tpu.lights.probe import build_probe
+    from optixpathtracer.builder import compile_scene
+    from optixpathtracer.core.camera import Camera
+    from optixpathtracer.lights.probe import build_probe
 
     hs = B.build_city_scene(n_boxes=12500)
-    cs = compile_scene(hs, leaf_size=8, wide_width=8, build_wide_bvh=False,
-                       cluster_size=256)
+    cs = compile_scene(hs, leaf_size=8, wide_width=8, build_wide_bvh=False)
     sky = np.full((64, 128, 3), 0.4, np.float32)
     sky[8:12, 30:34] = (60.0, 55.0, 45.0)
     probe = build_probe(sky)
@@ -71,31 +69,28 @@ def main():
     ap.add_argument("--skip-q", action="store_true")
     args = ap.parse_args()
 
-    from optixpathtracer_tpu.utils.cache import enable_compilation_cache
+    from optixpathtracer.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
-    import dataclasses
-
     import jax
     import jax.numpy as jnp
 
-    from optixpathtracer_tpu.engine.renderer import Renderer
-    from optixpathtracer_tpu.engine.wavefront import (
+    from optixpathtracer.engine.renderer import Renderer
+    from optixpathtracer.engine.wavefront import (
         CameraParams,
         RenderConfig,
         trace_wavefront,
     )
+    from optixpathtracer.utils.platform import auto_tune
 
     cs, probe, cam = city_setup()
-    on_cpu = jax.default_backend() == "cpu"
     scenes_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "scenes")
-    cfg = RenderConfig(
+    cfg = auto_tune(RenderConfig(
         width=W4K, height=H4K, samples_per_launch=args.spp_per_launch,
-        max_depth=4, traversal="lockstep" if on_cpu else "cluster",
-        sort_rays=not on_cpu, nee_final_bounce=False, batch_spp=True,
+        max_depth=4, nee_final_bounce=False, batch_spp=True,
         sampling="sobol",
-    )
+    ))
 
     # ---- fovea disc at disc_spp ----------------------------------------
     if not args.skip_fovea:
@@ -138,7 +133,7 @@ def main():
     if not args.skip_q:
         print(f"companion: {W4K}x{H4K} at {args.q_spp} spp -> 960x540",
               flush=True)
-        qcfg = dataclasses.replace(cfg, dispatch_tiles=1 if on_cpu else 16)
+        qcfg = cfg
         r = Renderer(cs, probe, qcfg, cam)
         t0 = time.perf_counter()
         n_l = args.q_spp // qcfg.samples_per_launch
